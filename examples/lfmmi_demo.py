@@ -1,5 +1,5 @@
 """End-to-end LF-MMI scoring demo (the reference's examples/test_cuda.jl
-usage, TPU-native): build a tiny denominator LM ∘ HMM graph and per-utterance
+usage): build a tiny denominator LM ∘ HMM graph and per-utterance
 numerator graphs on the host, compile them for the device, then score a
 ragged batch — posteriors, differentiable LF-MMI loss, Viterbi decode — and
 run the same denominator state-sharded over a device mesh.
@@ -74,9 +74,8 @@ def main():
             [lab[-1] for lab in f.labels] + [num_pdfs], dtype=np.int32
         )
         # linear lattices compile to the 'banded' strategy: the stacked
-        # batch then runs as ONE fused scan with the graph axis on the
-        # vector lanes (ops/pallas_banded.py) — the fast path for the
-        # LF-MMI numerator pass
+        # batch (one sequence per graph) then runs as ONE scan over all
+        # graphs — the Triton kernel of ops/pallas_banded.py on the GPU
         num_cfs.append(inf.compile_fsm(f, spdf, num_pdfs, strategy="banded"))
 
     # ---- 2. compile + score on the device

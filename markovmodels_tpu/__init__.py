@@ -1,11 +1,11 @@
-"""markovmodels_tpu — a TPU-native lattice-inference engine.
+"""markovmodels_tpu — a lattice-inference engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 FAST-ASR/MarkovModels.jl: semiring linear algebra over compiled FSMs, batched
 forward-backward and Viterbi recursions over sparse HMM transition graphs,
-and LF-MMI numerator/denominator graph scoring — built for TPU meshes
-(GSPMD sharding, `lax.scan` time recursions, MXU log-matmul kernels) rather
-than ported from the reference's Julia/CUDA design.
+and LF-MMI numerator/denominator graph scoring — built from `lax.scan` time
+recursions, blocked matmul operators and device meshes rather than ported
+from the reference's Julia/CUDA design.
 """
 
 from .semiring import LOG, TROPICAL, PROB, BOOL, Semiring, get_semiring

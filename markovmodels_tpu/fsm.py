@@ -8,7 +8,7 @@ finite-state machine with labels on *states*, stored as the extended matrix
                          as arcs to the phony final state, which self-loops
                          with weight one)
 
-The extended form is what makes ragged batching and the fixed-shape TPU scan
+The extended form is what makes ragged batching and the fixed-shape device scan
 clean: after a sequence ends, all probability mass parks on the phony final
 state (see reference src/inference.jl:54-60 and ops/recursions here).
 

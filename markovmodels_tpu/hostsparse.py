@@ -1,6 +1,6 @@
 """Host-side sparse linear algebra over semirings.
 
-This is the TPU build's analog of the reference's L1 layer: Julia
+This is this engine's analog of the reference's L1 layer: Julia
 ``SparseArrays`` generic semiring mul on CPU plus the GPU assembly routines of
 reference src/linalg.jl (blockdiag :73-131, vcat :137-157, SpMV :159-233).
 Here it only serves the *ahead-of-time graph compiler* — device-side math

@@ -1,13 +1,13 @@
 """Device-side inference: compiled FSMs, forward-backward, LF-MMI scoring.
 
-TPU-first re-design of the reference's inference runtime
+A re-design of the reference's inference runtime
 (reference src/inference.jl):
 
 * ``compile`` lowers a host ``FSM`` to jit-stable padded arrays — the analog
   of ``CompiledFSM``/``adapt(CuArray, ...)`` (src/inference.jl:3-26) but as a
   JAX pytree: COO edge lists sorted by destination/source (both directions
   stored, like the reference caching T̂ and T̂ᵀ, CHANGELOG 0.10), optional ELL
-  incoming-arc lists, and an optional dense MXU operator.
+  incoming-arc lists, and an optional dense matmul operator.
 * the time recursion is a ``lax.scan`` whose body is a semiring matvec
   (ops/semiring_ops.py), replacing the reference's per-frame CUDA SpMV loop
   (src/inference.jl:62-110); ragged batches use the same phony-final-state
@@ -19,10 +19,10 @@ TPU-first re-design of the reference's inference runtime
   and interior frames are recomputed during the β sweep, bounding memory at
   O(S·B·(chunk + N/chunk)) instead of O(S·B·N).
 * batching: a *shared* graph (LF-MMI denominator) keeps one compiled graph
-  and a (S, B) state matrix — the TPU-native form of the reference's
+  and a (S, B) state matrix — the batch-axis form of the reference's
   blockdiag-of-identical-graphs batching (misc/benchmark/benchmark.jl:20);
   heterogeneous per-utterance graphs are stacked/padded and vmapped
-  (``stack``), the TPU-native form of ``rawunion``/``batch``
+  (``stack``), the padded-stack form of ``rawunion``/``batch``
   (src/fsmops.jl:28-36, src/inference.jl:28-36).
 
 Scans rescale per frame (running-max subtraction) so bf16/f32 stay in range
@@ -142,12 +142,12 @@ class CompiledFSM:
     ell_fwd_w: Optional[jnp.ndarray]
     ell_bwd_src: Optional[jnp.ndarray]
     ell_bwd_w: Optional[jnp.ndarray]
-    # optional dense MXU operators (exp-shifted) (Sp, Sp) + row maxima (Sp,)
+    # optional dense matmul operators (exp-shifted) (Sp, Sp) + row maxima (Sp,)
     dense_fwd_exp: Optional[jnp.ndarray]
     dense_fwd_max: Optional[jnp.ndarray]
     dense_bwd_exp: Optional[jnp.ndarray]
     dense_bwd_max: Optional[jnp.ndarray]
-    # optional one-hot Ĉᵀ (P+1, Sp) for the MXU pdf-posterior reduction
+    # optional one-hot Ĉᵀ (P+1, Sp) for the matmul pdf-posterior reduction
     pdf_onehot: Optional[jnp.ndarray]
     # optional blocked gather-matmul-scatter operators (ops/blocked.py)
     block_fwd: Optional[object]
@@ -195,9 +195,8 @@ class CompiledFSM:
     # their pdfs with V history states) sit in nOv extra cap-wide
     # lane-groups at [P*cap, P*cap + nOv*cap), host-order, with per-LANE
     # pdfs (state_pdf holds them); the phony final state follows at
-    # P*cap + nOv*cap.  pdf_group is () in this mode — the XLA paths use
-    # the general state_pdf gather/scatter, the fused kernel streams a
-    # per-lane emission block for the overflow rows.
+    # P*cap + nOv*cap.  pdf_group is () in this mode — the scans use the
+    # general state_pdf gather/scatter.
     ov_layout: tuple = ()
     # arc offsets (dst - src) of the 'banded' strategy, sorted
     banded_offsets: tuple = ()
@@ -258,8 +257,8 @@ def compile_fsm(
     beyond the first ``cap`` per pdf move to an *overflow* region of extra
     cap-wide lane-groups (host order, per-lane pdfs) instead of inflating
     cmax to a lane-misaligned V+1.  Their arcs compile into structured
-    overflow families (ops/blocked.py) that the fused kernel applies as
-    slab ops, keeping the whole graph on the fused fast path.  Default
+    overflow families (ops/blocked.py) applied as slab ops, keeping the
+    whole operator affine.  Default
     (None) auto-caps at the largest multiple of 128 below cmax whenever
     cmax > 128 and is not lane-aligned; pass an explicit cap to force the
     layout (tests use small caps).
@@ -298,7 +297,7 @@ def compile_fsm(
     alpha_in = np.asarray(fsm.alpha_hat, dtype=np.float64)
 
     if strategy == "auto":
-        # dense MXU operator while the S^2 matrix is cheap; blocked
+        # dense matmul operator while the S^2 matrix is cheap; blocked
         # gather-matmul-scatter beyond (ops/blocked.py); 'ell'/'segment'
         # remain for low-degree graphs and exact log-domain needs.
         strategy = "dense" if S1 <= 4096 else "block"
@@ -324,11 +323,8 @@ def compile_fsm(
         cmax = max(int(counts.max()), 1)
         cap = ov_cap
         if cap is None and cmax > 128 and cmax % 128:
-            # cap at exactly 128: the padded tail is always 128 slots, and
-            # the fused plan requires tail % cap == 0 — any larger cap
-            # would permute the layout only to be rejected at plan time
-            # (review finding, round 5); caps that don't divide 128 are
-            # likewise fused-hostile, so the auto rule never picks them
+            # cap at 128, the blocked operator's block width, so every
+            # overflow group is exactly one block
             cap = 128
         if cap is not None and cap < cmax:
             # capped layout with overflow region (see the ov_cap docstring)
@@ -442,7 +438,7 @@ def compile_fsm(
     )
 
     # one-hot Ĉᵀ: lets the per-frame pdf-posterior reduction run as a small
-    # MXU matmul instead of segment scatters (worth ~1MB for typical P·S).
+    # matmul instead of segment scatters (worth ~1MB for typical P·S).
     # With a uniform pdf-grouped layout the reduction is a reshape-sum and
     # the one-hot is never touched on the hot path.  In general-Ĉ mode this
     # binary matrix IS the Ĉᵀ of the reference (multiple ones per column).
@@ -585,18 +581,17 @@ def compile_fsm(
 
 def stack(cfsms) -> CompiledFSM:
     """Stack compiled FSMs into one batched structure (padding to common
-    shapes) — the TPU-native ``batch`` (reference src/inference.jl:28-36):
+    shapes) — this engine's ``batch`` (reference src/inference.jl:28-36):
     instead of blockdiag-ing sparse storage, graphs get a leading batch axis
     and the recursions vmap over it.
 
-    Fast-path note: stacked LINEAR lattices (the LF-MMI numerator shape)
-    should compile with strategy='banded' — the stacked batch then runs
-    as ONE fused Pallas scan with the graph axis on the vector lanes
-    (ops/pallas_banded.py; ~27 ms for 128 numerators at N=700 vs ~190 ms
-    for any XLA formulation).  'dense' stacks run the vmapped prob-domain
-    scan (batched MXU matmuls) and remain the fallback for non-banded
-    heterogeneous graphs.  The 'block' strategy and its fused scans
-    target one LARGE graph shared across the batch (the LF-MMI
+    Route note: stacked LINEAR lattices (the LF-MMI numerator shape)
+    should compile with strategy='banded' — the stacked batch (one
+    sequence per graph) then runs as ONE log-domain scan over all graphs,
+    the Triton kernel of ops/pallas_banded.py on the GPU.  'dense' stacks
+    run the vmapped prob-domain scan (batched matmuls) and remain the
+    fallback for non-banded heterogeneous graphs.  The 'block' strategy
+    targets one LARGE graph shared across the batch (the LF-MMI
     denominator); stacking block operators is rejected because that
     workload shape (many distinct 2M-arc graphs in one batch) does not
     occur — the shared-graph batch axis already covers it."""
@@ -792,7 +787,7 @@ def _pdf_reduce(cf: CompiledFSM, gamma):
     """Ĉᵀ(α⊙β): per-pdf reduction over states + per-frame normalization
     (reference src/inference.jl:155-156).
 
-    With a one-hot Ĉᵀ the whole reduction is one small MXU matmul in the
+    With a one-hot Ĉᵀ the whole reduction is one small matmul in the
     probability domain: gamma is already per-frame rescaled by the scan, so
     exp(gamma - colmax) cannot overflow and normalization cancels colmax."""
     if cf.pdf_onehot is not None:
@@ -846,7 +841,11 @@ def _fb_run(kern: _Kernels, lhs, lengths, chunk_size, want_posts, num_pdfs):
     lhs_cm = lhs_tm.reshape(C, K, B, P)
     ts_cm = ts.reshape(C, K)
 
-    x0 = jnp.broadcast_to(kern.alpha0[:, None], (Sl, B)).astype(lhs.dtype)
+    x0 = (
+        kern.alpha0.astype(lhs.dtype)
+        if kern.alpha0.ndim == 2  # per-column initial state (stacked graphs)
+        else jnp.broadcast_to(kern.alpha0[:, None], (Sl, B)).astype(lhs.dtype)
+    )
     shift0 = jnp.zeros(B, lhs.dtype)
     comp0 = jnp.zeros(B, lhs.dtype)
 
@@ -939,7 +938,7 @@ def _make_eprob(cf: CompiledFSM, lengths, op: str = "sum"):
         elif cf.multi_pdf:
             # general Ĉ: emission of state s sums its pdf set (the
             # reference's Ĉ·V̂ expansion, src/inference.jl:151) — one binary
-            # MXU matmul; padding/phony columns carry the phony-pdf one
+            # matmul; padding/phony columns carry the phony-pdf one
             x = jnp.dot(
                 cf.pdf_onehot.T, ext,
                 preferred_element_type=jnp.float32,
@@ -968,7 +967,7 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts,
     Instead of logsumexp per frame, the state vector is carried as
     max-normalized probabilities with an accumulated log-shift
     (pychain-style rescaling; cf. reference README's pychain comparison,
-    misc/benchmark/benchmark.py).  Per frame this is one MXU matvec
+    misc/benchmark/benchmark.py).  Per frame this is one matvec
     (``fwd_pmv``/``bwd_pmv``: dense operator or blocked gather-matmul-
     scatter) plus cheap multiplies — no exp/log over the (S, B) state matrix.
 
@@ -978,7 +977,7 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts,
     B, N, P = lhs.shape
     if P != cf.num_pdfs:
         raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
-    prec = sops._PRECISIONS[cf.precision]
+    prec = sops.dot_precision(cf.precision, cf.alpha_hat.dtype)
     onehot = cf.pdf_onehot  # (P+1, Sp) or None
     P1 = cf.num_pdfs + 1
 
@@ -1022,18 +1021,21 @@ def _fb_prob(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts,
     return _fbp_run(kern, lhs, lengths, chunk_size, want_posts, cf.num_pdfs)
 
 
-def _fb_prob_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
-                            want_posts):
-    """Stacked 'banded' graphs (e.g. 128 LF-MMI numerator lattices) run as
-    ONE prob-domain scan with the GRAPH axis on the vector lanes: state
-    (Sp, G) instead of the vmapped per-graph (Sp, 1).
+def _fb_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
+                       want_posts):
+    """Stacked 'banded' graphs (e.g. 128 LF-MMI numerator lattices, one
+    sequence each) run as ONE log-domain scan with the graph axis as the
+    batch axis: state (Sp, G) instead of the vmapped per-graph (Sp, 1).
 
-    The vmapped route leaves every per-frame op with a trailing dim of 1 —
-    measured 0.107 s for the forward scan of 128×80-state numerators
-    (~150 µs/frame of pure lane-waste).  With graphs as lanes the same
-    ops are (Sp, G) slabs; per-graph parameters (bands, ω, α, state→pdf
-    map, final state) ride the lane axis, and the per-graph pdf reduction
-    is one batched one-hot matmul."""
+    Log domain, not the rescaled probabilities of the other routes: a
+    numerator's forward filter can put its mass far ahead of the alignment
+    the rest of the utterance forces (a 0.5 self-loop drifts ~t/2 states in
+    t frames, while a 78-state lattice over 700 frames advances ~t/9), so
+    the states that carry the posterior sit more than f32's ~87 nats below
+    the frame maximum and a rescaled f32 scan flushes them to zero.
+
+    On the GPU the Triton kernel (ops/pallas_banded.py) runs the same
+    recursion; elsewhere this XLA scan does."""
     B, N, P = lhs.shape
     if P != cf.num_pdfs:
         raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
@@ -1043,89 +1045,64 @@ def _fb_prob_banded_stacked(cf: CompiledFSM, lhs, lengths, chunk_size,
             f"stacked banded scan expects one sequence per graph "
             f"(B = {B}, graphs = {G})"
         )
-    from .ops import pallas_banded as pband
+    if _banded_kernel_reason(cf, B) is None:
+        from .ops import pallas_banded as pband
 
-    if pband.banded_scan_supported(cf, B, n_frames=N) is None:
-        posts, vfin, shift, ksum = pband.banded_fused_fb(
-            cf, lhs, lengths, want_posts
-        )
-        logZ = _combine_shift(
-            jnp.where(vfin > 0, jnp.log(jnp.maximum(vfin, 1e-38)), NEG_INF),
-            ksum, shift,
-        )
-        if not want_posts:
-            return None, logZ
-        posts = jnp.moveaxis(posts, 2, 0)[:, :N, :P]  # (G, N, P)
-        return posts, logZ
+        return pband.banded_fb(cf, lhs, lengths, want_posts)
     Sp = cf.padded_states
     P1 = P + 1
     offs = cf.banded_offsets
-    bfT = jnp.moveaxis(cf.banded_fwd, 0, 1)  # (nO, Sp... ) -> per-offset
-    bbT = jnp.moveaxis(cf.banded_bwd, 0, 1)
-    # lane-major parameter layouts: (Sp, G)
-    bf = jnp.transpose(bfT, (0, 2, 1))  # (nO, Sp, G)
-    bb = jnp.transpose(bbT, (0, 2, 1))
-    omT = jnp.transpose(cf.omega_prob)  # (Sp, G)
-    a0 = jnp.transpose(jnp.exp(cf.alpha_hat))  # (Sp, G)
+    # graph-minor parameter layouts: (Sp, G), bands (nO, Sp, G)
+    lbf = jnp.log(jnp.transpose(cf.banded_fwd, (1, 2, 0)))
+    lbb = jnp.log(jnp.transpose(cf.banded_bwd, (1, 2, 0)))
+    lom = jnp.log(jnp.transpose(cf.omega_prob))
     spdfT = jnp.transpose(cf.state_pdf)  # (Sp, G) int32
-    fin_mask = (
-        jnp.arange(Sp)[:, None] == cf.final_state[None, :]
-    ).astype(lhs.dtype)  # (Sp, G)
+    is_fin = jnp.arange(Sp)[:, None] == cf.final_state[None, :]  # (Sp, G)
     # per-graph one-hot state→pdf for the posterior reduction (G, P1, Sp)
     oh = (
         spdfT.T[:, None, :] == jnp.arange(P1)[None, :, None]
     ).astype(lhs.dtype)
-    prec = sops._PRECISIONS[cf.precision]
 
-    def fwd_pmv(x):
-        y = jnp.zeros_like(x)
-        for oi, off in enumerate(offs):
-            xs = x if off == 0 else jnp.roll(x, off, axis=0)
-            y = y + bf[oi] * xs
-        yfin = jnp.sum(omT * x, axis=0)  # (G,)
-        return y * (1.0 - fin_mask) + fin_mask * yfin[None, :]
+    def lse(terms):
+        return sops.masked_logsumexp(jnp.stack(terms), axis=0)
 
-    def bwd_pmv(x):
-        y = jnp.zeros_like(x)
-        for oi, off in enumerate(offs):
-            xs = x if off == 0 else jnp.roll(x, -off, axis=0)
-            y = y + bb[oi] * xs
-        xfin = jnp.sum(fin_mask * x, axis=0)  # (G,)
-        return y + omT * xfin[None, :]
+    def fwd_mv(x):
+        y = lse([lbf[oi] + (x if off == 0 else jnp.roll(x, off, axis=0))
+                 for oi, off in enumerate(offs)])
+        yfin = sops.masked_logsumexp(lom + x, axis=0)  # (G,)
+        return jnp.where(is_fin, yfin[None, :], y)
 
-    def eprob(lhs_t, t):
-        active = t < lengths  # (G,)
-        m_l = jnp.max(lhs_t, axis=1)  # (G,)
-        el = jnp.exp(lhs_t - m_l[:, None])  # (G, P)
-        ph = jnp.where(active, 0.0, 1.0)[None, :]
-        ext = jnp.concatenate([el.T * active[None, :], ph], axis=0)
+    def bwd_mv(x):
+        xfin = jnp.max(jnp.where(is_fin, x, NEG_INF), axis=0)  # (G,)
+        return lse([lbb[oi] + (x if off == 0 else jnp.roll(x, -off, axis=0))
+                    for oi, off in enumerate(offs)] + [lom + xfin[None, :]])
+
+    def elhs(lhs_t, t):
+        ext = jnp.concatenate(
+            [lhs_t.T, jnp.full((1, G), NEG_INF, lhs_t.dtype)], axis=0
+        )  # (P1, G); phony pdf row = zero(K)
         x = jnp.take_along_axis(ext, spdfT, axis=0)  # (Sp, G)
-        return x, jnp.where(active, m_l, 0.0)
+        active = (t < lengths)[None, :]
+        return jnp.where(active, x, jnp.where(is_fin, 0.0, NEG_INF))
 
-    def pdf_reduce(gamma):
-        s = jnp.einsum(
-            "gps,sg->pg", oh, gamma,
-            preferred_element_type=jnp.float32, precision=prec,
-        )
-        return s, jnp.sum(gamma, axis=0)
+    def pdf_posts(gamma):
+        g = jnp.exp(gamma - _colmax_safe(gamma)[None, :])  # (Sp, G)
+        s = jnp.einsum("gps,sg->pg", oh, g, preferred_element_type=jnp.float32,
+                       precision=lax.Precision.HIGHEST)
+        tot = jnp.sum(g, axis=0)
+        return s / jnp.where(tot > 0, tot, 1.0)[None, :]
 
-    def final_val(a, ksum, shift):
-        v = jnp.sum(fin_mask * a, axis=0)
-        return _combine_shift(
-            jnp.where(v > 0, jnp.log(jnp.maximum(v, 1e-38)), NEG_INF),
-            ksum, shift,
-        )
-
-    kern = _ProbKernels(
-        alpha0=a0,
-        fwd_pmv=fwd_pmv,
-        bwd_pmv=bwd_pmv,
-        eprob=eprob,
-        colmax=lambda y: jnp.max(y, axis=0),
-        pdf_reduce=pdf_reduce,
-        final_val=final_val,
+    kern = _Kernels(
+        alpha0=jnp.transpose(cf.alpha_hat),
+        fwd_mv=fwd_mv,
+        bwd_mv=bwd_mv,
+        elhs=elhs,
+        colmax=_colmax_safe,
+        pdf_posts=pdf_posts,
+        final_val=lambda x, shift: jnp.max(
+            jnp.where(is_fin, x, NEG_INF), axis=0) + shift,
     )
-    return _fbp_run(kern, lhs, lengths, chunk_size, want_posts, P)
+    return _fb_run(kern, lhs, lengths, chunk_size, want_posts, P)
 
 
 @dataclasses.dataclass
@@ -1162,11 +1139,7 @@ def _fbp_run(kern: _ProbKernels, lhs, lengths, chunk_size, want_posts,
     lhs_cm = lhs_tm.reshape(C, K, B, P)
     ts_cm = ts.reshape(C, K)
 
-    a0 = (
-        kern.alpha0.astype(lhs.dtype)
-        if kern.alpha0.ndim == 2  # per-column initial state (stacked path)
-        else jnp.broadcast_to(kern.alpha0[:, None], (Sl, B)).astype(lhs.dtype)
-    )
+    a0 = jnp.broadcast_to(kern.alpha0[:, None], (Sl, B)).astype(lhs.dtype)
     shift0 = jnp.zeros(B, lhs.dtype)
     comp0 = jnp.zeros(B, lhs.dtype)
     k0 = jnp.zeros(B, lhs.dtype)
@@ -1253,7 +1226,7 @@ def _make_kernels(cf: CompiledFSM, lengths) -> _Kernels:
 
 def _make_prob_matvecs(cf: CompiledFSM):
     """Probability-domain matvec closures for the prob-domain scan."""
-    prec = sops._PRECISIONS[cf.precision]
+    prec = sops.dot_precision(cf.precision, cf.alpha_hat.dtype)
     if cf.strategy == "dense":
         scale_f = jnp.exp(cf.dense_fwd_max)  # (Sp,); -inf rows -> 0
         scale_b = jnp.exp(cf.dense_bwd_max)
@@ -1311,196 +1284,54 @@ def _make_prob_matvecs(cf: CompiledFSM):
     raise ValueError(f"no prob-domain matvec for strategy {cf.strategy!r}")
 
 
-def _fb_prob_pallas(cf: CompiledFSM, lhs, lengths, want_posts):
-    """Fused Pallas scan (ops/pallas_scan.py): the graph operator stays
-    resident in VMEM across all frames instead of being re-streamed from HBM
-    per frame under ``lax.scan`` — the step past the reference's per-frame
-    CUDA SpMV launches (src/inference.jl:69-73)."""
-    from .ops import pallas_scan as ps
+def _banded_kernel_reason(cf: CompiledFSM, batch_size: int):
+    """None when a stacked 'banded' graph takes the compiled Triton kernel
+    (ops/pallas_banded.py), else why it takes the lane-stacked XLA scan.
+    The kernel compiles only for the GPU; on any other backend the XLA scan
+    runs.  On the GPU a supported graph always takes the kernel."""
+    from .ops import pallas_banded as pband
 
-    B, N, P = lhs.shape
-    if P != cf.num_pdfs:
-        raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
-    ext, mshift = ps.prepare_emissions(lhs, lengths, P)
-    # prob-domain operators: exp(row_max) folded back into the exp-shifted
-    # matrix (renormed graph weights keep these in f32 range)
-    wp_f = jnp.exp(cf.dense_fwd_max)[:, None] * cf.dense_fwd_exp
-    wp_b = jnp.exp(cf.dense_bwd_max)[:, None] * cf.dense_bwd_exp
-    oh_state = cf.pdf_onehot.T  # (Sp, P1)
-    a0 = jnp.broadcast_to(
-        jnp.exp(cf.alpha_hat)[:, None], (cf.padded_states, B)
-    ).astype(jnp.float32)
-    alphas, afin, shift, ksum = ps.fused_forward(
-        wp_f, oh_state, ext, mshift, a0,
-        save_alphas=want_posts, precision=cf.precision,
-    )
-    v = jnp.take(afin, cf.final_state, axis=0)
-    logZ = _combine_shift(
-        jnp.where(v > 0, jnp.log(jnp.maximum(v, 1e-38)), NEG_INF), ksum, shift
-    )
-    if not want_posts:
-        return None, logZ
-    posts = ps.fused_backward(
-        wp_b, cf.pdf_onehot, oh_state, ext, alphas, precision=cf.precision
-    )  # (Nf, P1, B)
-    posts = jnp.moveaxis(posts, 2, 0)[:, :N, :P]
-    return posts, logZ
-
-
-def _fb_block_pallas(cf: CompiledFSM, lhs, lengths, want_posts, chunk_size):
-    """Fused Pallas scan for the blocked operator (ops/pallas_block.py):
-    operator + state resident in VMEM, chunk-boundary checkpoints only on
-    the forward pass."""
-    from .ops import pallas_block as pb
-    from .ops import pallas_scan as ps
-
-    B, N, P = lhs.shape
-    if P != cf.num_pdfs:
-        raise ValueError(f"lhs has {P} pdfs, graph expects {cf.num_pdfs}")
-    ext, mshift = ps.prepare_emissions(lhs, lengths, P)
-    chunk = 64 if chunk_size is None else min(chunk_size, N + 1)
-    posts, vfin, shift, ksum = pb.block_fused_fb(
-        cf, ext, mshift, want_posts, chunk=chunk
-    )
-    logZ = _combine_shift(
-        jnp.where(vfin > 0, jnp.log(jnp.maximum(vfin, 1e-38)), NEG_INF),
-        ksum,
-        shift,
-    )
-    if not want_posts:
-        return None, logZ
-    posts = jnp.moveaxis(posts, 2, 0)[:, :N, :P]  # (B, N, P)
-    return posts, logZ
-
-
-def _pallas_block_reject_reason(cf: CompiledFSM, batch_size: int):
-    import os
-
-    from .ops import pallas_block as pb
-
-    if os.environ.get("MMTPU_NO_PALLAS"):
-        return "MMTPU_NO_PALLAS is set"
-    if cf.domain != "prob":
-        return f"domain {cf.domain!r} != 'prob'"
-    if jax.default_backend() != "tpu" and not os.environ.get(
-        "MMTPU_PALLAS_INTERPRET"
-    ):
-        return (f"backend {jax.default_backend()!r} is not TPU (set "
-                "MMTPU_PALLAS_INTERPRET=1 to force interpret mode)")
-    return pb.block_scan_reject_reason(cf, batch_size)
-
-
-def _pallas_block_ok(cf: CompiledFSM, lhs) -> bool:
-    return _pallas_block_reject_reason(cf, lhs.shape[0]) is None
+    if jax.default_backend() != "gpu":
+        return (f"backend {jax.default_backend()!r} (the Triton kernel "
+                "compiles only for the GPU)")
+    return pband.banded_kernel_reject_reason(cf, batch_size)
 
 
 def fast_path_report(cf: CompiledFSM, batch_size: int = 128) -> str:
-    """One-line explanation of which fused fast path ``pdfposteriors`` will
-    take for this graph at ``batch_size`` — and, when it falls back to the
-    ~8x slower XLA ``lax.scan``, the FIRST rejected predicate.
-
-    The fused Pallas scans silently decline graphs outside their supported
-    shape (non-affine tier layouts, multi-tier/residue operators, general
-    Ĉ, VMEM overflow...); this makes the cliff visible without reading
-    kernel code.  ``pdfposteriors`` also logs this line (logger
-    'markovmodels_tpu') the first time a 'block'-strategy graph falls back.
-
-    ``batch_size`` must equal the RUNTIME batch (``lhs.shape[0]``) for the
-    report to match the dispatcher near VMEM boundaries: the predicates use
-    the per-slice batch ``min(batch_size, 64)``, so a report computed at
-    the default 128 can disagree with an actual dispatch at B < 64 for
-    graphs near the VMEM budget.
-    """
-    if cf.strategy == "block":
-        reason = _pallas_block_reject_reason(cf, batch_size)
-        if reason is None:
-            return "fused-pallas-block (VMEM-resident blocked operator)"
-        return f"xla lax.scan fallback - fused blocked scan rejected: {reason}"
-    if cf.strategy == "dense":
-        reason = _pallas_dense_reject_reason(cf, batch_size)
-        if reason is None:
-            return "fused-pallas-dense (VMEM-resident dense operator)"
-        return f"xla lax.scan fallback - fused dense scan rejected: {reason}"
-    if cf.strategy == "banded":
-        if cf.domain != "prob":
-            return ("xla log-domain scan ('banded' strategy compiled with "
-                    "domain='log'; the prob-domain paths need "
-                    "domain='prob')")
-        if cf.batched:
-            from .ops import pallas_banded as pband
-
-            reason = pband.banded_scan_supported(cf, batch_size)
-            if reason is None:
-                return ("fused-pallas-banded (stacked scan, graph axis on "
-                        "the vector lanes)")
-            return ("xla prob-domain scan - fused banded scan rejected: "
-                    f"{reason}")
-        return ("xla prob-domain scan (single 'banded' graph; the fused "
-                "banded scan covers STACKED graphs)")
-    return (f"xla lax.scan ({cf.strategy!r} strategy; fused paths cover "
-            "'dense', 'block' and stacked 'banded')")
-
-
-def _pallas_dense_reject_reason(cf: CompiledFSM, batch_size: int):
-    """None when the fused dense Pallas scan accepts this graph, else the
-    first rejected predicate.  Single source of truth shared by the
-    dispatcher (:func:`_pallas_ok`) and :func:`fast_path_report` so the
-    two cannot drift."""
-    import os
-
-    from .ops import pallas_scan as ps
-
-    if os.environ.get("MMTPU_NO_PALLAS"):
-        return "MMTPU_NO_PALLAS is set"
-    if cf.strategy != "dense":
-        return f"strategy {cf.strategy!r} != 'dense'"
-    if cf.domain != "prob":
-        return f"domain {cf.domain!r} != 'prob'"
-    if cf.pdf_onehot is None:
-        return "no pdf one-hot reduction matrix"
+    """One-line name of the route ``pdfposteriors`` takes for this graph at
+    ``batch_size`` (the runtime ``lhs.shape[0]``), with the operator's
+    layout where that decides the cost: the blocked operator's tier
+    access patterns (affine views or index gathers/scatters) and residue."""
     if cf.batched:
-        return "batched CompiledFSM"
-    # the fused backward normalizes by the state-space sum, which is only
-    # equal to the pdf-space sum when every state has one pdf
-    if cf.multi_pdf:
-        return "general multi-pdf C-hat"
-    if cf.alpha_hat.dtype != jnp.float32:
-        return (f"operator dtype {cf.alpha_hat.dtype} (fused kernels are "
-                "f32; the XLA path handles other dtypes)")
-    # Off-TPU the kernels run in interpret mode — numerically identical but
-    # slow, so it is opt-in (CI parity tests set MMTPU_PALLAS_INTERPRET=1).
-    if jax.default_backend() != "tpu" and not os.environ.get(
-        "MMTPU_PALLAS_INTERPRET"
+        G = cf.alpha_hat.shape[0]
+        if cf.strategy != "banded" or batch_size != G:
+            return (f"xla vmapped per-graph scan ({cf.strategy!r} strategy, "
+                    f"batch {batch_size}, {G} graphs)")
+        reason = _banded_kernel_reason(cf, batch_size)
+        if reason is None:
+            return "pallas-triton banded kernel (stacked graphs, log domain)"
+        return ("xla stacked banded scan (log domain) - kernel not used: "
+                f"{reason}")
+    if cf.domain != "prob" or cf.strategy in ("ell", "segment") or (
+        cf.strategy == "dense" and cf.pdf_onehot is None
     ):
-        return (f"backend {jax.default_backend()!r} is not TPU (set "
-                "MMTPU_PALLAS_INTERPRET=1 to force interpret mode)")
-    if not ps.pallas_scan_supported(
-        cf.padded_states, batch_size, cf.num_pdfs + 1
-    ):
-        return (f"VMEM working set too large for Sp = {cf.padded_states}, "
-                f"B = {batch_size}")
-    return None
-
-
-def _pallas_ok(cf: CompiledFSM, lhs) -> bool:
-    return _pallas_dense_reject_reason(cf, lhs.shape[0]) is None
+        return f"xla log-domain scan ({cf.strategy!r} strategy)"
+    if cf.strategy == "block":
+        descs = cf.block_fwd_offsets[1] + cf.block_bwd_offsets[1]
+        forms = sorted({d[0] for pair in descs for d in pair})
+        n_res = sum(
+            0 if op.res_src is None else int(op.res_src.shape[0])
+            for op in (cf.block_fwd, cf.block_bwd)
+        )
+        layout = "affine" if all(
+            f not in ("gather", "scatter") for f in forms
+        ) and n_res == 0 else "irregular"
+        return (f"xla block scan ({layout} operator: tier access "
+                f"{'/'.join(forms) or 'none'}, {n_res} residue arcs)")
+    return f"xla prob-domain scan ({cf.strategy!r} strategy)"
 
 
 def _fb_single(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
-    if _pallas_ok(cf, lhs):
-        return _fb_prob_pallas(cf, lhs, lengths, want_posts)
-    if _pallas_block_ok(cf, lhs):
-        return _fb_block_pallas(cf, lhs, lengths, want_posts, chunk_size)
-    if cf.strategy == "block":
-        # the caller picked the at-scale strategy but the fused scan
-        # declined the graph — name the predicate once, at trace time
-        # (VERDICT r3: silent ~8x fast-path cliffs)
-        import logging
-
-        logging.getLogger("markovmodels_tpu").warning(
-            "block-strategy graph fell off the fused fast path: %s",
-            _pallas_block_reject_reason(cf, lhs.shape[0]),
-        )
     if cf.domain == "prob" and (
         (cf.strategy == "dense" and cf.pdf_onehot is not None)
         or cf.strategy in ("block", "banded")
@@ -1539,7 +1370,7 @@ def _kahan_add(s, c, x):
     return t, (t - s) - y
 
 
-_FULL_MEM_BYTES = 4 << 30  # keep saved alphas below ~4 GB of HBM
+_FULL_MEM_BYTES = 4 << 30  # device-memory budget for the saved alphas
 
 
 def _auto_chunk(cf: CompiledFSM, lhs):
@@ -1566,14 +1397,12 @@ def _dispatch(cf: CompiledFSM, lhs, lengths, chunk_size, want_posts):
             raise ValueError("batched graphs expect lhs of shape (B, N, P)")
         if (
             cf.strategy == "banded"
-            and cf.domain == "prob"
-            and not cf.multi_pdf
             and lhs.shape[0] == cf.alpha_hat.shape[0]
         ):
             # one-sequence-per-graph stacked numerators: run as a single
-            # scan with the graph axis on the vector lanes (the vmapped
+            # scan with the graph axis as the batch axis (the vmapped
             # per-graph route leaves every op with a trailing dim of 1)
-            return _fb_prob_banded_stacked(
+            return _fb_banded_stacked(
                 cf, lhs, lengths, chunk_size, want_posts
             )
 
@@ -1610,8 +1439,8 @@ def forward(cf: CompiledFSM, lhs, lengths=None, *, chunk_size: int | None = None
 
 def _stop_gradient_floats(tree):
     """stop_gradient on inexact leaves only: integer fields (final_state,
-    index arrays) stay CONCRETE under jit so the fused paths' static uses
-    (``int(cf.final_state)``, plan extraction) keep working — a blanket
+    index arrays) stay CONCRETE under jit so static uses such as
+    ``int(cf.final_state)`` keep working — a blanket
     tree_map(stop_gradient) would turn them into tracers."""
     return jax.tree.map(
         lambda x: lax.stop_gradient(x)
@@ -1660,7 +1489,7 @@ def lfmmi_loss(
 # ---------------------------------------------------------------------------
 
 # naming parity with the reference API (src/inference.jl exports
-# ``compile``/``batch``; ``stack`` is the TPU-native batch).
+# ``compile``/``batch``; ``stack`` is the padded-stack batch).
 compile = compile_fsm
 batch = stack
 

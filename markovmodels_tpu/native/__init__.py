@@ -1,7 +1,7 @@
 """C++ native host runtime (ctypes bindings).
 
 The device compute path is JAX/XLA/Pallas; this package is the *host* native
-layer — the TPU build's counterpart to the reference's native surface
+layer — this engine's counterpart to the reference's native surface
 (CUSPARSE conversions, reference src/linalg.jl:12-67, and GPU array-assembly
 routines :69-157). It accelerates the AOT graph compiler: COO→CSR semiring
 assembly, CSR transpose, segment ⊕-reduction, and OpenFST-text parsing.

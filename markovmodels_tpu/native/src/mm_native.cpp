@@ -1,9 +1,9 @@
 // Native host runtime for markovmodels_tpu.
 //
-// This is the TPU build's analog of the reference's native layer: where
+// This is this engine's analog of the reference's native layer: where
 // MarkovModels.jl leans on CUSPARSE C routines for sparse format conversion
 // (reference src/linalg.jl:12-67) and on CUDA array-assembly kernels for
-// blockdiag/vcat batching (reference src/linalg.jl:69-157), the TPU engine's
+// blockdiag/vcat batching (reference src/linalg.jl:69-157), the engine's
 // *device* math is JAX/XLA/Pallas, and the host-side graph compiler's hot
 // paths live here: semiring COO->CSR assembly with duplicate coalescing,
 // O(nnz) CSR transpose, and OpenFST-text graph parsing (the format emitted by

@@ -1,7 +1,7 @@
 """Temporal parallelization of the forward recursion (associative scan).
 
 The reference's recursion is strictly sequential over frames
-(reference src/inference.jl:69-73) — on TPU that serializes N small matvecs.
+(reference src/inference.jl:69-73) — N small matvecs in sequence.
 But the per-frame update is linear: with probability-domain operators
 
     M_t = diag(e_t) · A        (A[j,i] = exp T̂[i,j], e_t = frame-t emission)
@@ -18,7 +18,7 @@ exchanges boundary operators with one all_gather).
 
 Scheme (work-efficient two-level):
   1. chunk-fold: reshape N operators to (K, C) chunks; a ``lax.scan`` of C
-     steps, each a *batched* (K, S, S) MXU matmul, folds every chunk to one
+     steps, each a *batched* (K, S, S) matmul, folds every chunk to one
      operator — parallel across K, sequential over C;
   2. ``lax.associative_scan`` over the K chunk operators (log2 K rounds of
      batched matmuls) gives all chunk-boundary prefix products;
@@ -87,7 +87,7 @@ def assoc_forward(cf, lhs, lengths=None, *, chunk: int = 16,
     lengths = jnp.minimum(jnp.asarray(lengths, dtype=jnp.int32), N)
     A = dense_prob_operator(cf)
     Sp = cf.padded_states
-    prec = sops._PRECISIONS[cf.precision]
+    prec = sops.dot_precision(cf.precision, cf.alpha_hat.dtype)
 
     def one(lhs_b, len_b):
         e, m_l = _emissions(cf, lhs_b, len_b)  # (N+1, Sp), (N+1,)
@@ -103,7 +103,7 @@ def assoc_forward(cf, lhs, lengths=None, *, chunk: int = 16,
         eye = jnp.broadcast_to(jnp.eye(Sp, dtype=lhs.dtype), (pad, Sp, Sp))
         Ms = jnp.concatenate([Ms, eye], axis=0).reshape(K, chunk, Sp, Sp)
 
-        # 1) fold each chunk sequentially (batched MXU matmuls over K)
+        # 1) fold each chunk sequentially (batched matmuls over K)
         def fold(carry, M_c):
             y = jnp.einsum("kij,kjl->kil", M_c, carry,
                            preferred_element_type=jnp.float32, precision=prec)

@@ -1,6 +1,6 @@
 """Blocked gather-matmul-scatter (GMS) operator for large sparse graphs.
 
-The TPU answer to the reference's warp-per-row CUDA SpMV
+The answer to the reference's warp-per-row CUDA SpMV
 (reference src/linalg.jl:213-233) at the 2M-arc scale, in the probability
 domain: compile-time, the edge set of T̂ is split into
 
@@ -10,7 +10,7 @@ domain: compile-time, the edge set of T̂ is split into
 * a **blocked** part — destination states tiled into contiguous blocks of
   128; each block's union-of-sources becomes a gathered (Smax, B) panel and
   the block's weights a dense (Smax, 128) matrix, so the update is a batched
-  MXU matmul (for n-gram LM ∘ HMM graphs the source sets are the shared
+  matmul (for n-gram LM ∘ HMM graphs the source sets are the shared
   predecessor-histories, giving ~1:1 densification);
 * a **residue** — edges of blocks with pathologically many distinct sources,
   applied as a plain scatter-add.
@@ -77,9 +77,8 @@ def _window(base, rows, stride, width, limit):
 def _gather_desc(idx: np.ndarray, limit: int):
     """Classify a (K, Sm) gather index pattern.
 
-    Affine patterns are emitted as slice+reshape(+transpose), which TPUs run
-    at full HBM bandwidth — a random row gather is ~45x slower (measured on
-    v5e).  Returns one of:
+    Affine patterns are emitted as slice+reshape(+transpose) views instead
+    of a random row gather.  Returns one of:
       ('affine_k_major', base, dk, col0)  view (K, dk)[:, col0:col0+Sm]
       ('affine_s_major', base, ds, col0)  view (Sm, ds)[:, col0:col0+K] swap
       ('diag', base, dm)                  K == 1, arbitrary stride: strided
@@ -276,8 +275,8 @@ def build_block_operator(
     cap).  compile_fsm's capped pdf-grouped layout parks the states that
     exceed the uniform per-pdf slot count there (e.g. a backoff LM's
     backoff states).  Arcs touching the region are lifted into structured
-    families (lane-aligned windows/columns, see _fit_in_family) that the
-    fused kernel applies as single slab ops; arcs that fit no family fall
+    families (lane-aligned windows/columns, see _fit_in_family) applied
+    as single slab ops; arcs that fit no family fall
     back to the generic tier grouping.  Band arcs (shared offsets) cover
     the region like any other states.
     """
@@ -542,7 +541,7 @@ def block_matvec(op: BlockOperator, meta, x, precision, *, op_kind="sum"):
 
     ``meta``: (band_offsets, tier_descs[, band_nz_hi]) — static, from
     build_block_operator.
-    ``op_kind``: 'sum' (probability semiring, MXU einsum) or 'max' (tropical
+    ``op_kind``: 'sum' (probability semiring, einsum) or 'max' (tropical
     semiring in the probability domain — max of products, which the per-frame
     rescaled Viterbi scan uses; the broadcast-multiply + max-reduce fuses in
     XLA so the (K, Sm, D, B) intermediate never hits HBM).
@@ -619,8 +618,7 @@ def block_matvec(op: BlockOperator, meta, x, precision, *, op_kind="sum"):
             y = y.at[op.res_dst].max(contrib)
         else:
             y = y.at[op.res_dst].add(contrib)
-    # overflow families (generic gather/scatter forms; the fused kernel
-    # applies the same descriptors as single VMEM slab ops instead)
+    # overflow families (generic gather/scatter forms)
     ov_descs = meta[3] if len(meta) > 3 else ()
     for desc, W in zip(ov_descs, op.ov_w):
         kind, g0, form, base, stride, D = desc
@@ -764,14 +762,10 @@ def _maxarg_packed(prod, axis, nbits=8):
     round-off of optimal, and the id is only a backpointer — the carried
     Viterbi VALUE stays the exact f32 max).
 
-    Rationale and MEASURED OUTCOME (round 5, 2M shape): the hypothesis was
-    that the variadic (max, argmax) comparator (2 selects/element) is the
-    13%-of-VPU-bound limiter and two plain maxes would win.  Measured:
-    1.15 s vs the variadic path's 0.68 s — 1.7x SLOWER (and a pure max
-    sweep with no argmax at all still costs 0.51 s), so the broadcast
-    max-reduce itself is the bound, not the comparator.  Kept opt-in
-    (MMTPU_VIT_PACKED=1) as the recorded counter-experiment;
-    parity-tested against the variadic path.
+    The hypothesis: two plain max-reductions beat the variadic (max,
+    argmax) comparator (2 selects/element).  It did not hold where it was
+    measured, so it is opt-in (MMTPU_VIT_PACKED=1), parity-tested against
+    the variadic path, and not measured on the GPU.
 
     Requires prod >= 0 (probability domain) and idx range < 2^nbits.
     """
@@ -788,7 +782,7 @@ def _maxarg_packed(prod, axis, nbits=8):
 
 def _strided_rows(x, base, rows, stride, width, Sp):
     """(rows, width, B) view of ``x[base + r*stride : +width]`` via
-    slice+reshape (full-bandwidth on TPU) or None when it cannot be
+    slice+reshape (no index gather) or None when it cannot be
     window-shifted into range — callers fall back to a gather."""
     if stride <= 0 or width > stride or base < 0:
         return None

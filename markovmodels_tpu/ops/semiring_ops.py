@@ -1,6 +1,6 @@
 """Device-side semiring linear algebra (JAX/XLA).
 
-TPU-native replacement for the reference's CUDA SpMV/SpMM kernels
+Replacement for the reference's CUDA SpMV/SpMM kernels
 (reference src/linalg.jl:159-280).  The per-frame recursion update
 ``y = T̂ᵀ ⊗ x`` (semiring matvec over the batched state vector, state axis
 first: x is (S, B)) comes in three interchangeable strategies:
@@ -11,10 +11,10 @@ first: x is (S, B)) comes in three interchangeable strategies:
 * ``ell`` — padded incoming-arc lists (ELL format), dense gathers +
   a logsumexp over the in-degree axis.  Great for low/uniform in-degree
   graphs (linear numerator lattices).
-* ``dense`` — masked dense operator hitting the MXU: the log-semiring matmul
+* ``dense`` — masked dense operator as a matrix product: the log-semiring matmul
   is computed as ``log(exp(W - rowmax) @ exp(x - colmax)) + rowmax + colmax``
   (blockwise max-rescaling trick; ``exp(W - rowmax)`` is precomputed once at
-  compile time so the per-frame cost is one real matmul plus cheap VPU work).
+  compile time so the per-frame cost is one real matmul plus cheap elementwise work).
 
 All ops use log-domain f32 and treat ``-inf`` as semiring zero, with masking
 so empty rows/columns yield exactly ``-inf`` (the reference kernel's
@@ -98,7 +98,7 @@ def ell_matvec(ell_src, ell_w, x, *, op="logsumexp"):
 
 
 # ---------------------------------------------------------------------------
-# dense (MXU) strategy
+# dense (matmul) strategy
 # ---------------------------------------------------------------------------
 
 def make_dense_operator(dense_w):
@@ -116,18 +116,31 @@ def make_dense_operator(dense_w):
 
 
 _PRECISIONS = {
-    # On TPU a DEFAULT f32 matmul runs single-pass bf16 (~7e-3 log error on
-    # the WSJ graph — opt-in speed mode); HIGH (3-pass bf16) matches HIGHEST
-    # (6-pass) to ~2e-7 here because f32 exp/log round-off dominates, at ~70%
-    # of the cost.  Measured on v5e, see bench history.
-    "bf16": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
+    # bf16 operands, f32 accumulation (one tensor-core pass)
+    "bf16": jax.lax.DotAlgorithmPreset.BF16_BF16_F32,
+    # three bf16 passes with f32 accumulation: about f32-accurate
+    "high": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
+    # true fp32: no TF32 rounding on the GPU
     "f32": jax.lax.Precision.HIGHEST,
 }
 
 
+def dot_precision(mode: str, dtype):
+    """``precision`` argument for a product of ``dtype`` operands under the
+    precision mode ``mode`` ('bf16' | 'high' | 'f32').
+
+    The modes below fp32 are dot algorithms over f32 operands that XLA's
+    GPU backend implements.  Everywhere else every mode is true fp32: the
+    CPU backend runs those algorithms at f32 anyway and rejects them for
+    some small shapes, and f64 operands (the f64 compile) are never
+    demoted."""
+    if jnp.dtype(dtype) != jnp.float32 or jax.default_backend() != "gpu":
+        return jax.lax.Precision.HIGHEST
+    return _PRECISIONS[mode]
+
+
 def dense_log_matvec(exp_w, row_max, x, precision: str = "high"):
-    """y[j, b] = logsumexp_i(W[j, i] + x[i, b]) on the MXU.
+    """y[j, b] = logsumexp_i(W[j, i] + x[i, b]) as one matrix product.
 
     Exactness note: the max-rescaling bound is per-(row, column) rather than
     per-element, so contributions > ~88 nats below (row_max + col_max) can
@@ -140,7 +153,7 @@ def dense_log_matvec(exp_w, row_max, x, precision: str = "high"):
         exp_w,
         ex,
         preferred_element_type=jnp.float32,
-        precision=_PRECISIONS[precision],
+        precision=dot_precision(precision, exp_w.dtype),
     )
     return jnp.where(
         p > 0, jnp.log(p) + row_max[:, None] + _safe(col_max)[None, :], NEG_INF

@@ -2,12 +2,12 @@
 
 The reference has no in-engine distribution (single GPU; Julia ``Distributed``
 only for host-side graph prep, reference examples/prepare-lfmmi-graphs.jl:106-109).
-The TPU-native scale-out story (SURVEY §5.8):
+The scale-out story (SURVEY §5.8):
 
 * utterance batch data-parallel over the 'data' axis (the reference's
   blockdiag batching is literally a batch axis);
 * the large shared LF-MMI denominator graph either replicated (default) or
-  state-sharded over the 'model' axis with psum/all_gather over ICI
+  state-sharded over the 'model' axis with psum/all_gather between devices
   (see ``parallel.sharded``).
 """
 from __future__ import annotations

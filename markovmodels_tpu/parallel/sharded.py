@@ -2,13 +2,13 @@
 
 For LF-MMI denominator graphs too large to replicate (the 2M-arc regime),
 states are range-partitioned across the 'model' mesh axis.  Per frame each
-shard all-gathers the (small) state vector over ICI, applies its local slice
+shard all-gathers the (small) state vector, applies its local slice
 of T̂ᵀ (edges partitioned by destination state), and per-frame normalizers /
 posterior reductions ride psum/pmax.  This replaces nothing in the reference
-— the reference is single-GPU (SURVEY §5.8) — it is the TPU-native scale-out
+— the reference is single-GPU (SURVEY §5.8) — it is the scale-out
 of the same recursion, composed with data parallelism over the 'data' axis.
 
-Communication per frame: one all_gather of (S_total, B_local) f32 over ICI
+Communication per frame: one all_gather of (S_total, B_local) f32
 plus two scalar-sized pmax/psum for rescaling; the matvec itself is local.
 """
 from __future__ import annotations
@@ -268,7 +268,7 @@ class ShardedProbFSM:
     (S_total, B) state matrix; here each shard instead sends only the state
     rows its peers actually reference (the union of remote sources of their
     edges — computed at compile time) via one ``all_to_all``, cutting per-
-    frame ICI traffic from S_total·B to 2·G·halo·B.  The matvec itself is a
+    frame exchange traffic from S_total·B to 2·G·halo·B.  The matvec itself is a
     probability-domain multiply + segment-sum (no per-edge logsumexp), and
     the scan skeleton (chunked checkpointing, exact power-of-two rescaling)
     is shared with the single-device fast path (inference._fbp_run)."""
@@ -443,7 +443,7 @@ def shard_compiled_prob(fsm: FSM, state_pdf, num_pdfs: int, num_shards: int,
 
 
 def halo_report(sf: ShardedProbFSM) -> dict:
-    """Per-frame ICI traffic of the static halo plan vs the log path's
+    """Per-frame exchange traffic of the static halo plan vs the log path's
     all_gather, in f32 rows per device (multiply by 4·B for bytes).
 
     ``sent`` counts the padded all_to_all payload a device actually puts on
@@ -484,7 +484,7 @@ def sharded_pdfposteriors_prob(
     chunk_size: int = 64,
 ):
     """Probability-domain state-sharded forward-backward with halo exchange
-    (the fast sharded path; ICI traffic 2·G·halo·B per frame instead of the
+    (the fast sharded path; exchange traffic 2·G·halo·B per frame instead of the
     log path's S_total·B all_gather).  Returns (posts (B, N, P), logZ (B,))."""
     from ..inference import _ProbKernels, _combine_shift, _fbp_run
 
@@ -586,7 +586,7 @@ def sharded_viterbi(
     Viterbi is single-device and disabled, src/MarkovModels.jl:56-57).
 
     Forward: tropical recursion inside ``shard_map`` — per frame one
-    all_gather of the state vector over ICI, then each shard max-reduces its
+    all_gather of the state vector, then each shard max-reduces its
     local destination rows (edges are partitioned by destination, so the
     shard owning a state resolves that state's **exact global argmax** and
     records the global source id as its backpointer; no cross-shard argmax

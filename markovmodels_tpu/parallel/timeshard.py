@@ -7,7 +7,7 @@ the multi-device form — the HMM analog of ring-attention/context
 parallelism: the frame sequence is sharded over a mesh axis, every device
 **folds its local chunk** of per-frame operators into a single (S, S)
 boundary operator in parallel, the D chunk operators are exchanged with one
-all_gather over ICI, and the (cheap, D-step) cross-device product yields the
+all_gather, and the (cheap, D-step) cross-device product yields the
 final state.  Wall-clock depth drops from O(N) matvecs to
 O(N/D) matmuls + O(D).
 
@@ -80,7 +80,7 @@ def timesharded_forward(
     D = mesh.shape[time_axis]
     Sp = cf.padded_states
     A = dense_prob_operator(cf)
-    prec = sops._PRECISIONS[cf.precision]
+    prec = sops.dot_precision(cf.precision, cf.alpha_hat.dtype)
     Nf = N + 1
     L = -(-Nf // D)
     Npad = L * D
@@ -138,7 +138,7 @@ def timesharded_forward(
             fold_step, (M0, jnp.zeros(B, lhs_l.dtype)), (lhs_l, ts)
         )
 
-        # exchange boundary operators: one all_gather over ICI
+        # exchange boundary operators: one all_gather
         Ms = lax.all_gather(Mc, time_axis)  # (D, B, Sp, Sp)
         shifts = lax.all_gather(shiftc, time_axis)  # (D, B)
 
@@ -179,7 +179,7 @@ def timesharded_pdfposteriors(
 
     1. every device folds its local chunk of per-frame operators into one
        boundary operator (parallel, O(N/D) matmuls);
-    2. chunk operators are all_gathered once over ICI; every device runs
+    2. chunk operators are all_gathered once; every device runs
        the cheap O(D) cross-chunk recursion to obtain its chunk's entry
        alpha and exit beta (replicated work, D·Sp² per sequence);
     3. every device runs a LOCAL forward-backward inside its chunk from
@@ -201,7 +201,7 @@ def timesharded_pdfposteriors(
     D = mesh.shape[time_axis]
     Sp = cf.padded_states
     A = dense_prob_operator(cf)
-    prec = sops._PRECISIONS[cf.precision]
+    prec = sops.dot_precision(cf.precision, cf.alpha_hat.dtype)
     Nf = N + 1
     L = -(-Nf // D)
     Npad = L * D

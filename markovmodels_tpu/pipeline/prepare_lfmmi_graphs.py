@@ -1,6 +1,6 @@
 """LF-MMI supervision-graph preparation job.
 
-TPU-native analog of the reference's TOML-config-driven batch pipeline
+Analog of the reference's TOML-config-driven batch pipeline
 (reference examples/prepare-lfmmi-graphs.jl:102-224): per-utterance numerator
 graphs ``G ∘ L ∘ H`` serialized to disk with .scp manifests, n-gram stats
 accumulated in parallel (python multiprocessing instead of Julia Distributed,

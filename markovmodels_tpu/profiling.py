@@ -1,15 +1,37 @@
 """Timing / tracing utilities.
 
 The reference measures wall-clock with a warmup run to exclude JIT
-compilation (misc/benchmark/benchmark.jl:37-54); TPU-native equivalent:
-``block_until_ready`` timing plus ``jax.profiler`` traces (SURVEY §5.1).
+compilation (misc/benchmark/benchmark.jl:37-54); here: ``block_until_ready``
+timing plus ``jax.profiler`` traces (SURVEY §5.1), and one fixed place for
+JAX's persistent compile cache.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
-__all__ = ["benchmark", "trace", "Timer"]
+__all__ = ["benchmark", "trace", "Timer", "enable_compile_cache"]
+
+# the checkout that holds this package
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache(root: str = _CHECKOUT):
+    """Point JAX's persistent compile cache at ``<root>/.jax_cache``.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+    sets nothing.  The path is fixed (never a temporary or per-run name)
+    because it is part of the cache key: a directory that moves never hits.
+    Returns the directory in use."""
+    import jax
+
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(root, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 class Timer:

@@ -1,8 +1,8 @@
-"""Semiring algebra for the TPU lattice-inference engine.
+"""Semiring algebra for the lattice-inference engine.
 
 The reference (MarkovModels.jl) parameterizes every operation over Julia
 scalar semiring types from Semirings.jl (see reference src/MarkovModels.jl:12,
-usage e.g. src/fsmops.jl:71-80).  On TPU we want plain float arrays that XLA
+usage e.g. src/fsmops.jl:71-80).  On the device we want plain float arrays that XLA
 can tile, so a semiring here is a small *algebra object*: a set of closed
 operations (``add``, ``mul``, reductions, division, ...) acting on ordinary
 numpy / jax arrays whose float values are the semiring's internal

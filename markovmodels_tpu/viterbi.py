@@ -18,12 +18,10 @@ here it is first-class, with two regimes:
     tropical forward sweep records (Npad, Sp, B) uint8 ids (~4.4 GB at
     the benchmark shape) via a single-pass variadic (max, argmax) reduce,
     and the backtrace is a trivial gather walk.  The tropical max-product
-    reduction is VPU-bound (no MXU analog of max-times), so halving the
-    sweeps is the dominant win: measured 0.68 s vs 1.43 s for the
-    recompute design at 2M arcs (0.85 s on the canonicalized backoff
-    layout, whose overflow candidates add one windowed pass).
+    has no tensor-core form (no max-times matrix unit), so halving the
+    sweeps is the lever.
   - **backpointer-free chunk recompute** (fallback; full int32 backpointers
-    would cost as much HBM as the alphas): forward saves only chunk
+    would cost as much device memory as the alphas): forward saves only chunk
     boundaries; the path is recovered chunk-by-chunk in reverse by
     recomputing alphas from the boundary, then walking s_t = argmax over
     the ≤D_in incoming arcs of s_{t+1}.
@@ -128,7 +126,7 @@ def _trop_prob_matvec(cf: CompiledFSM):
 
         def mv(a):
             # broadcast-multiply + max-reduce fuses in XLA (no (Sp, Sp, B)
-            # intermediate in HBM)
+            # intermediate in device memory)
             return jnp.max(Wp[:, :, None] * a[None, :, :], axis=1)
 
         return mv
@@ -149,6 +147,8 @@ def _trop_prob_matvec(cf: CompiledFSM):
     raise ValueError(f"no tropical prob matvec for strategy {cf.strategy!r}")
 
 
+# device-memory budgets: saved alphas of the recompute decoder, and the
+# backpointer stream (uint8 here, int32 in _viterbi_single)
 _FULL_MEM_BYTES = 4 << 30
 _BP_MEM_BYTES = 6 << 30
 
@@ -157,7 +157,7 @@ def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
     """None when the compressed-backpointer decode (_viterbi_scale_bp) can
     run, else the first rejected predicate: block strategy, rank-1 ω
     split, single affine tier (candidate ids fit uint8), and the
-    (Npad, Sp, B) uint8 bp stream fitting in HBM."""
+    (Npad, Sp, B) uint8 bp stream fitting its memory budget."""
     import os
 
     if os.environ.get("MMTPU_NO_VITBP"):
@@ -182,44 +182,12 @@ def _bp_vit_reject_reason(cf: CompiledFSM, lhs):
     if need > _BP_MEM_BYTES:
         return (f"uint8 backpointer stream ~{need / 1e9:.1f} GB exceeds "
                 f"the {_BP_MEM_BYTES / 1e9:.0f} GB budget (chunk-recompute "
-                "decode used instead, ~2x slower)")
+                "decode used instead)")
     return None
 
 
 def _bp_vit_ok(cf: CompiledFSM, lhs) -> bool:
     return _bp_vit_reject_reason(cf, lhs) is None
-
-
-def _vit_pallas_ok(cf: CompiledFSM, lhs) -> bool:
-    """Opt-in (MMTPU_VIT_PALLAS=1) fused tropical Pallas sweep.
-
-    NOT the default: measured at the 2M benchmark shape, the Pallas sweep
-    (operator + state VMEM-resident, fused broadcast-max chunks) runs
-    0.97-0.99 s vs the XLA lax.scan bp sweep's 0.69 s — XLA's variadic
-    (max, argmax) reduce codegen beats Mosaic's broadcast-reduce lowering
-    for this VPU-bound pattern (~13% vs ~9% of the VPU ALU bound; see
-    bench.py's roofline analysis).  Kept behind the flag as the measured
-    counter-experiment and for future Mosaic codegen improvements; parity
-    is tested (tests/test_pallas_block.py)."""
-    import os
-
-    from .ops import pallas_block as pb
-
-    if not os.environ.get("MMTPU_VIT_PALLAS"):
-        return False
-    if os.environ.get("MMTPU_NO_PALLAS") or os.environ.get("MMTPU_NO_VITBP"):
-        return False
-    if jax.default_backend() != "tpu" and not os.environ.get(
-        "MMTPU_PALLAS_INTERPRET"
-    ):
-        return False
-    # the fused sweep materializes per-slice uint8 streams, a transposed
-    # copy per slice and their batch concat — peak HBM ~3x the nominal
-    # (N+1)*Sp*B bp budget, so gate at a third of it
-    B, N, _ = lhs.shape
-    if 3 * (N + 1) * cf.padded_states * B > _BP_MEM_BYTES:
-        return False
-    return pb.vit_scan_supported(cf, lhs.shape[0])
 
 
 def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
@@ -228,9 +196,10 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
     winning *candidate id* (tier source position or band offset index —
     uint8, in-degree < 255), plus the rank-1 ω argmax per frame.  The
     backtrace is then a trivial (B,) gather walk — no chunk recompute
-    sweep, unlike _viterbi_scale (the tropical max-product reduction is
-    VPU-bound, so halving the sweeps is the dominant win; the uint8 stream
-    costs Npad·Sp·B bytes of HBM, ~4.4 GB at the 2M-arc benchmark shape).
+    sweep, unlike _viterbi_scale (the tropical max-product runs on the
+    vector units, so halving the sweeps is the lever; the uint8 stream
+    costs Npad·Sp·B bytes of device memory, ~4.4 GB at the 2M-arc
+    benchmark shape).
 
     Reference hot-kernel analog src/linalg.jl:159-233 (tropical SpMV); the
     reference's (disabled) bestpath stored full per-state backpointers.
@@ -309,65 +278,47 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
             oo[d_grid.reshape(-1)] = s_grid.reshape(-1)
         ovout_tab = jnp.asarray(oo.astype(np.int32))
 
-    if _vit_pallas_ok(cf, lhs):
-        # fused tropical Pallas sweep: operator + state VMEM-resident,
-        # bps cover the main region [0, R*W) (tail states never carry
-        # decodable mass — the walk guards them to 255)
-        from .ops import pallas_block as pb
-        from .ops import pallas_scan as ps
+    lhs_tm = jnp.pad(
+        jnp.moveaxis(lhs, 1, 0), ((0, Nf - N), (0, 0), (0, 0))
+    )
+    ts_sc = jnp.arange(Nf, dtype=jnp.int32)
+    eprob = _make_eprob(cf, lengths, op="max")
+    a0 = jnp.broadcast_to(
+        jnp.exp(cf.alpha_hat)[:, None], (Sp, B)
+    ).astype(lhs.dtype)
+    zero = jnp.zeros(B, lhs.dtype)
+    bidx = jax.lax.broadcasted_iota(jnp.int32, (Sp, B), 0)
 
-        ext, mshift = ps.prepare_emissions(lhs, lengths, P)
-        bps, fins, vfin, sF, kF = pb.block_fused_viterbi_fwd(cf, ext, mshift)
-        score = _combine_shift(
-            jnp.where(vfin > 0, jnp.log(jnp.maximum(vfin, 1e-38)), NEG_INF),
-            kF,
-            sF,
+    def fstep(carry, inp):
+        a, ksum, shift, comp = carry
+        lhs_t, t = inp
+        # rank-1 ω transition into phony: value + argmax source
+        fin_v, fin_a = _maxarg(omega_p[:, None] * a, bidx, 0)
+        y, cand = block_matvec_max_arg(
+            cf.block_fwd, cf.block_fwd_offsets, a, ov_span=ov_span
         )
-    else:
-        lhs_tm = jnp.pad(
-            jnp.moveaxis(lhs, 1, 0), ((0, Nf - N), (0, 0), (0, 0))
-        )
-        ts_sc = jnp.arange(Nf, dtype=jnp.int32)
-        eprob = _make_eprob(cf, lengths, op="max")
-        a0 = jnp.broadcast_to(
-            jnp.exp(cf.alpha_hat)[:, None], (Sp, B)
-        ).astype(lhs.dtype)
-        zero = jnp.zeros(B, lhs.dtype)
-        bidx = jax.lax.broadcasted_iota(jnp.int32, (Sp, B), 0)
-
-        def fstep(carry, inp):
-            a, ksum, shift, comp = carry
-            lhs_t, t = inp
-            # rank-1 ω transition into phony: value + argmax source
-            fin_v, fin_a = _maxarg(omega_p[:, None] * a, bidx, 0)
-            y, cand = block_matvec_max_arg(
-                cf.block_fwd, cf.block_fwd_offsets, a, ov_span=ov_span
-            )
-            y = y.at[fin_idx].set(fin_v)
-            p = jnp.where(t == 0, a, y)
-            e, m_l = eprob(lhs_t, t)
-            y = p * e
-            m = jnp.max(y, axis=0)
-            k = jnp.where(m > 0, jnp.floor(jnp.log2(m)), 0.0)
-            y = y * jnp.exp2(-k)[None, :]
-            shift, comp = _kahan_add(shift, comp, m_l)
-            return (y, ksum + k, shift, comp), (
-                cand.astype(jnp.uint8),
-                fin_a.astype(jnp.int32),
-            )
-
-        (aF, kF, sF, _), (bps, fins) = lax.scan(
-            fstep, (a0, zero, zero, zero), (lhs_tm, ts_sc)
-        )
-        v = jnp.take(aF, fin_idx, axis=0)
-        score = _combine_shift(
-            jnp.where(v > 0, jnp.log(jnp.maximum(v, 1e-38)), NEG_INF), kF, sF
+        y = y.at[fin_idx].set(fin_v)
+        p = jnp.where(t == 0, a, y)
+        e, m_l = eprob(lhs_t, t)
+        y = p * e
+        m = jnp.max(y, axis=0)
+        k = jnp.where(m > 0, jnp.floor(jnp.log2(m)), 0.0)
+        y = y * jnp.exp2(-k)[None, :]
+        shift, comp = _kahan_add(shift, comp, m_l)
+        return (y, ksum + k, shift, comp), (
+            cand.astype(jnp.uint8),
+            fin_a.astype(jnp.int32),
         )
 
-    # backtrace: decode candidate ids to source states.  ``bps`` may cover
-    # only the first RWc states (the fused sweep's main region): states
-    # beyond it (the ω tail) never carry decodable mass -> candidate 255.
-    RWc = bps.shape[1]
+    (aF, kF, sF, _), (bps, fins) = lax.scan(
+        fstep, (a0, zero, zero, zero), (lhs_tm, ts_sc)
+    )
+    v = jnp.take(aF, fin_idx, axis=0)
+    score = _combine_shift(
+        jnp.where(v > 0, jnp.log(jnp.maximum(v, 1e-38)), NEG_INF), kF, sF
+    )
+
+    # backtrace: decode candidate ids to source states
     k_of = jnp.asarray(tier_dst_inverse(cf.block_fwd, Sp))
     sidx_flat = sidx.reshape(-1)
     offs = jnp.asarray(
@@ -381,8 +332,7 @@ def _viterbi_scale_bp(cf: CompiledFSM, lhs, lengths):
 
     def wstep(s, inp):
         cand_t, fin_t, t = inp
-        c = cand_t[jnp.minimum(s, RWc - 1), bcol].astype(jnp.int32)
-        c = jnp.where(s < RWc, c, 255)
+        c = cand_t[s, bcol].astype(jnp.int32)
         tier_src = sidx_flat[
             jnp.clip(k_of[s], 0, K - 1) * Sm + jnp.clip(c, 0, Sm - 1)
         ]
@@ -450,7 +400,7 @@ def _viterbi_scale(cf: CompiledFSM, lhs, lengths, chunk_size=None):
     # The phony final state is EXCLUDED from the gather width: its in-degree
     # is O(S) (every state's ω arc) and a parked decoder sits on it for all
     # padded frames, so gathering its arc list per frame would dominate the
-    # whole decode (measured 58 s vs 0.5 s forward at the 2M scale); the
+    # whole decode at the 2M scale; the
     # ω transition at t = L-1 is resolved analytically from the rank-1 ω
     # vector instead.
     fin_idx = int(cf.final_state)

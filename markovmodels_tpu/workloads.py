@@ -127,36 +127,32 @@ def make_backoff_lm_hmm_graph(
 
     ``layout`` is the point of this generator:
 
-    * ``'embedded'`` (the TPU-first design): B(b) occupies the diagonal
+    * ``'embedded'``: B(b) occupies the diagonal
       history slot (b, b) — real backoff LMs subsume the rare (b, b)
       trigram context into backoff anyway.  Every backoff destination
       (b, b) and every bigram row then lives INSIDE the dense trigram
       tier's affine index pattern (dst slot 384·c + b in the pdf-grouped
-      layout), so the whole backoff family lowers onto the fused Pallas
-      fast path unchanged: pruning sparsifies the panel *weights* while
-      the *index structure* stays static and lane-aligned.  A strided
-      'diag' gather/scatter tier (ops/blocked.py descriptors) is what the
-      separate layout below would need — but a lane-UNALIGNED single-row
-      stride cannot be expressed as TPU vector slices at all (Mosaic has
-      no dynamic single-lane indexing); choosing a layout that makes the
-      family lane-aligned is the TPU answer, not a more general kernel.
+      layout), so the whole backoff family lowers onto the affine tier
+      unchanged: pruning sparsifies the panel *weights* while the *index
+      structure* stays static and aligned.  A strided 'diag'
+      gather/scatter tier (ops/blocked.py descriptors) is what the
+      separate layout below would need.
     * ``'separate'``: B(b) states appended after the V² histories — the
       layout the reference pipeline's ``LanguageModelFSM(ngrams) ∘ hmms``
       route produces (reference examples/prepare-lfmmi-graphs.jl:218-223).
       Its pdf groups have V+1 states (V histories sharing pdf (b, k) plus
       B(b)), so a plain uniform pdf-grouped layout would need cmax = V+1 —
-      not 128-lane alignable, and its tiers degrade to gather/scatter
-      ("4 tiers" is merely the FIRST rejected predicate).  Since round 5,
+      not 128-aligned, and its tiers degrade to gather/scatter.
       ``compile_fsm``'s capped/overflow canonicalization (``ov_cap``)
       keeps cmax = V, parks the backoff states in overflow lane-groups,
-      and lifts their arcs into structured families — so this layout now
-      reaches the SAME fused path; compiled with ``reorder='none'`` it
-      still shows the old cliff with a named reason.  bench.py times both
-      layouts and gates their parity.
+      and lifts their arcs into structured families, so this layout also
+      compiles to an all-affine operator; compiled with
+      ``reorder='none'`` it does not, and ``fast_path_report`` says so.
+      bench.py times both layouts and gates their parity.
 
     Returns (fsm, state_pdf, num_pdfs, info); ``info['real_arcs']`` counts
     stored arcs, ``info['panel_slots']`` the dense-tier slots they occupy
-    on the fused path (~``keep`` density).
+    in the affine tier (~``keep`` density).
     """
     rng = np.random.default_rng(seed)
     H = V * V
@@ -281,8 +277,8 @@ def make_lm_hmm_graph_via_compose(V: int = 128, hmm_states: int = 3,
     Compose lays sub-FSM states out h-major (state (h, k) at h·K + k),
     the generator plane-major (k·H + h).  Both orders canonicalize to the
     SAME pdf-grouped device layout inside ``inference.compile_fsm``
-    (reorder='pdf'), so compiler-produced graphs reach the fused Pallas
-    fast path identically — bench.py gates this.
+    (reorder='pdf'), so compiler-produced graphs compile to the same
+    all-affine operator — bench.py gates this.
 
     Returns (fsm, state_pdf, num_pdfs, info); ``state_pdf`` is derived
     from the composed labels, exactly as the pipeline derives its state

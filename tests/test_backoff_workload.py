@@ -3,9 +3,9 @@ the reference's actual WSJ denominator shape (pruned n-gram + backoff,
 reference misc/benchmark/README.md:5-6).
 
 Gates: (1) both layouts score correctly against the exact f64 host
-oracle; (2) at the benchmark scale the embedded-diagonal layout lowers
-onto the fused Pallas path while the naive separate-state layout falls
-back with a NAMED reason (the fast-path report)."""
+oracle; (2) at the benchmark scale both layouts compile to an all-affine
+blocked operator, while the separate-state layout without compile_fsm's
+canonicalizing reorder does not, and the route report says so."""
 import importlib.util
 import os
 
@@ -63,84 +63,89 @@ def test_backoff_viterbi_scores(layout):
     np.testing.assert_allclose(np.asarray(score), ref, atol=1e-4)
 
 
-def test_backoff_layouts_at_scale(monkeypatch):
-    """V=128: the embedded-diagonal layout keeps the pruned+backoff graph
-    on the fused path — and the *separate-state* layout (the reference
-    pipeline's own graph shape) now reaches it too, via compile_fsm's
-    capped/overflow canonicalization (round-5 top VERDICT item).  With the
-    canonicalizing reorder disabled it falls off and the report names the
-    predicate."""
-    from markovmodels_tpu.ops import pallas_block as pb
-
-    monkeypatch.setenv("MMTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MMTPU_NO_PALLAS", raising=False)
-
+def test_backoff_layouts_at_scale():
+    """V=128: the embedded-diagonal layout and the *separate-state* layout
+    (the reference pipeline's own graph shape, canonicalized by
+    compile_fsm's capped/overflow layout) both compile to an all-affine
+    blocked operator on the XLA block route; with the canonicalizing
+    reorder disabled the operator falls back to index gathers, scatters
+    and residue arcs, and the report names them."""
     fsm, spdf, P, info = make_backoff_lm_hmm_graph(V=128, keep=0.1)
     assert info["real_arcs"] < 0.2 * info["panel_slots"]
     cf = inf.compile_fsm(fsm, spdf, P, strategy="block")
-    assert pb.block_scan_reject_reason(cf, 128) is None
+    assert inf.fast_path_report(cf, 128).startswith(
+        "xla block scan (affine operator")
 
     fsm_s, spdf_s, P_s, _ = make_backoff_lm_hmm_graph(
         V=128, keep=0.1, layout="separate"
     )
     cf_s = inf.compile_fsm(fsm_s, spdf_s, P_s, strategy="block")
     assert cf_s.ov_layout == (128, 3)
-    assert pb.block_scan_reject_reason(cf_s, 128) is None
-    assert inf.fast_path_report(cf_s, 128).startswith("fused-pallas-block")
+    assert cf_s.block_fwd.res_src is None and cf_s.block_bwd.res_src is None
+    assert inf.fast_path_report(cf_s, 128).startswith(
+        "xla block scan (affine operator")
 
     cf_raw = inf.compile_fsm(fsm_s, spdf_s, P_s, strategy="block",
                              reorder="none")
-    reason = pb.block_scan_reject_reason(cf_raw, 128)
-    assert reason is not None
     report = inf.fast_path_report(cf_raw, 128)
-    assert report.startswith("xla lax.scan fallback")
-    assert reason in report
+    assert report.startswith("xla block scan (irregular operator"), report
+    assert "scatter" in report and " 0 residue" not in report
 
 
 def test_fast_path_report_matches_dispatch(monkeypatch):
-    """The report must agree with the dispatcher's actual gate for every
-    strategy/shape variant — locking the shared reject-reason helpers so
-    they cannot drift apart again (round-4 review finding)."""
-    import jax.numpy as jnp2
-
+    """The report must name the scan the dispatcher actually runs, for
+    every strategy/domain variant and for stacked numerators at a matching
+    and a mismatched batch."""
     from markovmodels_tpu.workloads import make_lm_hmm_graph
 
-    monkeypatch.setenv("MMTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MMTPU_NO_PALLAS", raising=False)
+    ran = []
+    for name in ("_fb_prob", "_fb_run", "_fb_banded_stacked"):
+        fn = getattr(inf, name)
+
+        def spy(*a, _fn=fn, _name=name, **k):
+            ran.append(_name)
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(inf, name, spy)
+    expect = {
+        "xla block scan": "_fb_prob",
+        "xla prob-domain scan": "_fb_prob",
+        "xla log-domain scan": "_fb_run",
+        "xla stacked banded scan": "_fb_banded_stacked",
+    }
+
+    def check(cf, B):
+        report = inf.fast_path_report(cf, B)
+        ran.clear()
+        inf.pdfposteriors(cf, jnp.zeros((B, 2, cf.num_pdfs), jnp.float32))
+        if report.startswith("xla vmapped per-graph scan"):
+            assert ran and "_fb_banded_stacked" not in ran, (report, ran)
+            return
+        route = next(v for k, v in expect.items() if report.startswith(k))
+        assert ran[0] == route, (report, ran)
 
     fsm_s, spdf_s, P_s, _ = make_lm_hmm_graph(V=4)
     fsm_l, spdf_l, P_l, _ = make_lm_hmm_graph(V=128)
-    variants = [
+    for cf in [
         inf.compile_fsm(fsm_s, spdf_s, P_s, strategy="dense"),
-        inf.compile_fsm(fsm_s, spdf_s, P_s, strategy="dense",
-                        domain="log"),
+        inf.compile_fsm(fsm_s, spdf_s, P_s, strategy="dense", domain="log"),
         inf.compile_fsm(fsm_s, spdf_s, P_s, strategy="ell"),
         inf.compile_fsm(fsm_s, spdf_s, P_s, strategy="segment"),
         inf.compile_fsm(fsm_l, spdf_l, P_l, strategy="block"),
         inf.compile_fsm(fsm_l, spdf_l, P_l, strategy="block",
                         reorder="none"),
-    ]
-    B = 4
-    for cf in variants:
-        lhs = jnp.zeros((B, 2, cf.num_pdfs), jnp.float32)
-        fused_dispatch = inf._pallas_ok(cf, lhs) or inf._pallas_block_ok(
-            cf, lhs
-        )
-        report = inf.fast_path_report(cf, B)
-        assert report.startswith("fused") == fused_dispatch, (
-            cf.strategy, report, fused_dispatch
-        )
+    ]:
+        check(cf, 4)
 
-    # stacked banded numerators: the report must agree with the fused
-    # banded gate at the matching (B == G) batch
+    # stacked numerators: 'banded' ones take the stacked scan, 'dense' ones
+    # the vmapped per-graph scan
     import markovmodels_tpu as mm2
     from markovmodels_tpu.fsm import FSM as _F
     from markovmodels_tpu.labels import Label as _L
-    from markovmodels_tpu.ops import pallas_banded as pband
 
     rng2 = np.random.default_rng(1)
-    cfs = []
-    for g in range(128):
+    cfs, cfd = [], []
+    for g in range(8):
         seq = rng2.integers(0, 6, size=4)
         arcs = [((i, i), np.log(0.5)) for i in range(4)] + [
             ((i, i + 1), np.log(0.5)) for i in range(3)
@@ -149,17 +154,13 @@ def test_fast_path_report_matches_dispatch(monkeypatch):
             [(0, 0.0)], arcs, [(3, np.log(0.5))],
             [_L(int(s)) for s in seq], mm2.LOG,
         )
-        cfs.append(inf.compile_fsm(f, np.append(seq, 6).astype(np.int32),
-                                   6, strategy="banded"))
-    nb = inf.stack(cfs)
-    rep = inf.fast_path_report(nb, 128)
-    assert rep.startswith("fused-pallas-banded") == (
-        pband.banded_scan_supported(nb, 128) is None
-    ), rep
-    # a mismatched batch must fall back with a named reason
-    rep_bad = inf.fast_path_report(nb, 64)
-    assert not rep_bad.startswith("fused")
-    assert "64" in rep_bad
+        spdf = np.append(seq, 6).astype(np.int32)
+        cfs.append(inf.compile_fsm(f, spdf, 6, strategy="banded"))
+        cfd.append(inf.compile_fsm(f, spdf, 6, strategy="dense"))
+    check(inf.stack(cfs), 8)
+    check(inf.stack(cfd), 8)
+    # a batch that is not one sequence per graph is named in the report
+    assert "batch 1, 8 graphs" in inf.fast_path_report(inf.stack(cfs), 1)
 
 
 @pytest.mark.parametrize("V,cap", [(8, 8), (16, 16)])
@@ -194,35 +195,6 @@ def test_ov_layout_small_graph_parity(V, cap):
     )
     _, score = vit.viterbi(cf, jnp.asarray(lhs), jnp.asarray(lens))
     np.testing.assert_allclose(np.asarray(score), ref_s, atol=1e-4)
-
-
-def test_ov_fused_matches_xla_at_scale(monkeypatch):
-    """The fused Pallas kernel WITH overflow families (interpret mode) must
-    match the XLA block path on the canonicalized V=128 separate-state
-    backoff graph — posts + logZ, ragged lengths, chunk boundary."""
-    monkeypatch.setenv("MMTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MMTPU_NO_PALLAS", raising=False)
-
-    fsm, spdf, P, _ = make_backoff_lm_hmm_graph(
-        V=128, keep=0.1, layout="separate"
-    )
-    cf = inf.compile_fsm(fsm, spdf, P, strategy="block")
-    assert cf.ov_layout == (128, 3)
-    assert inf.fast_path_report(cf, 8).startswith("fused-pallas-block")
-    B, N = 8, 4
-    rng = np.random.default_rng(7)
-    lhs = jnp.asarray(rng.normal(size=(B, N, P)).astype(np.float32) * 0.5)
-    lens = jnp.asarray([4, 3, 4, 1, 3, 4, 4, 3], dtype=jnp.int32)
-    p1, z1 = inf.pdfposteriors(cf, lhs, lens, chunk_size=2)
-    monkeypatch.setenv("MMTPU_NO_PALLAS", "1")
-    p0, z0 = inf.pdfposteriors(cf, lhs, lens, chunk_size=2)
-    z0, z1 = np.asarray(z0), np.asarray(z1)
-    fin = np.isfinite(z0)
-    assert (np.isfinite(z1) == fin).all()
-    np.testing.assert_allclose(z1[fin], z0[fin], atol=1e-5)
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(p0), atol=1e-5)
-    for b in range(B):
-        assert np.all(np.asarray(p1)[b, int(lens[b]):] == 0.0)
 
 
 def test_ov_bp_viterbi_matches_recompute_at_scale(monkeypatch):

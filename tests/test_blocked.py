@@ -120,3 +120,41 @@ def test_block_agrees_with_segment_strategy():
     ps, zs = inf.pdfposteriors(cf_s, jnp.asarray(lhs), jnp.asarray(lens))
     np.testing.assert_allclose(np.asarray(zb), np.asarray(zs), atol=2e-4)
     np.testing.assert_allclose(np.asarray(pb), np.asarray(ps), atol=2e-4)
+
+
+def test_descriptor_classifiers_all_branches():
+    """_gather_desc/_scatter_desc classify every affine family; _dir_plan
+    lowers the mirror (contig / affine_d) scatter forms too."""
+    from markovmodels_tpu.ops import blocked as bl
+
+    lim = 4096
+    K, Sm, D = 4, 8, 8
+    k, m = np.arange(K)[:, None], np.arange(Sm)[None, :]
+    # gather forms
+    assert bl._gather_desc(7 + k * 64 + m, lim)[0] == "affine_k_major"
+    assert bl._gather_desc(7 + k + m * 64, lim)[0] == "affine_s_major"
+    # a K=1 strided row is subsumed by the windowed s-major form (the
+    # 'diag' fallback would also be valid but the window is preferred)
+    assert bl._gather_desc(
+        np.arange(Sm)[None, :] * 5 + 3, lim
+    )[0] == "affine_s_major"
+    rng = np.random.default_rng(0)
+    assert bl._gather_desc(
+        rng.integers(0, lim, size=(K, Sm)), lim
+    )[0] == "gather"
+    d = np.arange(D)[None, :]
+    # scatter forms
+    assert bl._scatter_desc(64 + k * D + d, lim)[0] == "contig"
+    assert bl._scatter_desc(64 + k + d * K, lim)[0] == "affine_d"
+    assert bl._scatter_desc(64 + k * 32 + d, lim)[0] == "affine_k_pad"
+    assert bl._scatter_desc(64 + k + d * 32, lim)[0] == "affine_d_pad"
+    assert bl._scatter_desc(
+        np.arange(D)[None, :] * 7 + 2, lim
+    )[0] == "affine_d_pad"  # K=1 strided row: windowed form subsumes diag
+    assert bl._scatter_desc(
+        rng.integers(0, lim, size=(K, D)), lim
+    )[0] == "scatter"
+    # right-edge window shift: affine pattern overrunning `limit` comes
+    # back with col0 > 0 instead of falling off the fast path
+    desc = bl._gather_desc((lim - K * 64) + k * 64 + (64 - Sm) + m, lim)
+    assert desc[0] == "affine_k_major" and desc[3] > 0

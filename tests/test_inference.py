@@ -321,17 +321,15 @@ def test_banded_strategy_matches_dense_stacked():
     np.testing.assert_allclose(np.asarray(pb_), np.asarray(pd_), atol=1e-5)
 
 
-def test_banded_fused_pallas_matches_xla(monkeypatch):
-    """The fused stacked-banded Pallas scan (interpret mode) must match
-    the XLA stacked path bit-close at its target shape (G = 128 graphs,
-    one sequence each, ragged lengths incl. an infeasible one)."""
+def test_banded_fused_pallas_matches_xla():
+    """The stacked-banded Triton kernel, run in the Pallas interpreter,
+    must match the XLA stacked scan at its target graph count (G = 128
+    graphs, one sequence each, ragged lengths incl. an infeasible one)."""
     import markovmodels_tpu as mm
     from markovmodels_tpu.fsm import FSM as _FSM
     from markovmodels_tpu.labels import Label as _Label
     from markovmodels_tpu.ops import pallas_banded as pband
 
-    monkeypatch.setenv("MMTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MMTPU_NO_PALLAS", raising=False)
     rng = np.random.default_rng(3)
     P, G, N = 24, 128, 10
     cfs = []
@@ -348,16 +346,16 @@ def test_banded_fused_pallas_matches_xla(monkeypatch):
         cfs.append(inf.compile_fsm(f, np.append(seq, P).astype(np.int32),
                                    P, strategy="banded"))
     nb = inf.stack(cfs)
-    assert pband.banded_scan_supported(nb, G) is None
+    assert pband.banded_kernel_reject_reason(nb, G) is None
     lhs = jnp.asarray(rng.normal(size=(G, N, P)).astype(np.float32))
     lens = jnp.asarray(
         np.clip(3 + rng.integers(0, 8, size=G), 0, N).astype(np.int32)
     )
-    p1, z1 = inf.pdfposteriors(nb, lhs, lens)
-    monkeypatch.setenv("MMTPU_NO_PALLAS", "1")
-    p0, z0 = inf.pdfposteriors(nb, lhs, lens)
+    p1, z1 = pband.banded_fb(nb, lhs, lens, True, interpret=True)
+    p0, z0 = inf.pdfposteriors(nb, lhs, lens)  # XLA route on the CPU
     z0, z1 = np.asarray(z0), np.asarray(z1)
     assert (np.isfinite(z1) == np.isfinite(z0)).all()
+    assert not np.isfinite(z0).all()  # some lattice cannot finish in time
     fin = np.isfinite(z0)
     np.testing.assert_allclose(z1[fin], z0[fin], atol=1e-5)
     np.testing.assert_allclose(np.asarray(p1), np.asarray(p0), atol=1e-5)

@@ -340,3 +340,66 @@ def test_ov_layout_band_only_overflow_bp_decode(monkeypatch):
             np.asarray(st), np.asarray(sc),
         )
         assert gap < 1e-3
+
+
+@pytest.fixture(scope="module")
+def lm_graph_v128():
+    """The benchmark's 2M-arc LM∘HMM graph (host FSM, block compile)."""
+    from markovmodels_tpu.workloads import make_lm_hmm_graph
+
+    raw = make_lm_hmm_graph(V=128)
+    fsm, spdf, P, _ = raw
+    return raw, inf.compile_fsm(fsm, spdf, P, strategy="block")
+
+
+def test_bp_viterbi_matches_recompute_path(lm_graph_v128, monkeypatch):
+    """Compressed-backpointer decode vs the chunk-recompute fallback on the
+    V=128 affine-tier graph: matching scores and optimal paths, ragged."""
+    raw_graph, cf = lm_graph_v128
+    P = raw_graph[2]
+    B, N = 8, 4
+    rng = np.random.default_rng(13)
+    lhs = jnp.asarray(rng.normal(size=(B, N, P)).astype(np.float32) * 0.5)
+    lens = jnp.asarray([4, 3, 4, 2, 3, 4, 4, 3], dtype=jnp.int32)
+
+    assert vit._bp_vit_ok(cf, lhs)
+    s1, z1 = vit.viterbi(cf, lhs, lens)
+    monkeypatch.setenv("MMTPU_NO_VITBP", "1")
+    s0, z0 = vit.viterbi(cf, lhs, lens, chunk_size=2)
+
+    np.testing.assert_allclose(np.asarray(z1), np.asarray(z0), atol=1e-5)
+    # both decoders may break exact ties differently; each path must be
+    # valid and achieve the optimal score in exact f64 arithmetic
+    import scipy.sparse as sp
+
+    from markovmodels_tpu import hostsparse as hs
+
+    fsm, spdf = raw_graph[0], raw_graph[1]
+    rows, cols, data = hs.findnz(fsm.T_hat)
+    S1 = len(fsm.alpha_hat)
+    T = sp.csr_matrix(
+        (np.asarray(data, dtype=np.float64), (rows, cols)), shape=(S1, S1)
+    )
+    T.sort_indices()
+
+    def arc_w(i, j):
+        lo, hi = T.indptr[i], T.indptr[i + 1]
+        k = lo + np.searchsorted(T.indices[lo:hi], j)
+        return T.data[k] if k < hi and T.indices[k] == j else -np.inf
+
+    a0 = np.asarray(fsm.alpha_hat, dtype=np.float64)
+    lhs_np = np.asarray(lhs)
+    for states, score in ((np.asarray(s1), np.asarray(z1)),
+                          (np.asarray(s0), np.asarray(z0))):
+        for b in range(B):
+            L = int(lens[b])
+            if not np.isfinite(score[b]):
+                continue  # infeasible (L < HMM length): path undefined
+            path = states[b, :L]
+            w = a0[path[0]] + float(
+                lhs_np[b, np.arange(L), spdf[path]].astype(np.float64).sum()
+            )
+            for t in range(L - 1):
+                w += arc_w(path[t], path[t + 1])
+            w += arc_w(path[L - 1], S1 - 1)
+            np.testing.assert_allclose(w, float(score[b]), atol=1e-4)

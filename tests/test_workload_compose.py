@@ -7,11 +7,11 @@ counts.  Equality is checked EXACTLY under the known state permutation
 ``fsmequal`` label-sum oracle is infeasible here because label-path sets
 grow exponentially on cyclic LM graphs.
 
-``test_composed_graph_reaches_fused_path`` is the round-4 canonicalization
-gate: compiling the compose-built graph must land on the SAME fused-Pallas
-device layout as the generator's (the pdf-grouped relabeling inside
-``compile_fsm`` is the canonicalization pass — it maps both host state
-orders onto one canonical device order)."""
+``test_composed_graph_reaches_fused_path`` is the canonicalization gate:
+compiling the compose-built graph must land on the SAME device layout as
+the generator's (the pdf-grouped relabeling inside ``compile_fsm`` is the
+canonicalization pass — it maps both host state orders onto one canonical
+device order), an all-affine blocked operator."""
 import time
 
 import numpy as np
@@ -64,27 +64,18 @@ def test_compose_scales_to_lm_arc_counts():
     assert dt < 60, f"compose took {dt:.1f}s"
 
 
-def test_composed_graph_reaches_fused_path(monkeypatch):
-    """Round-4 canonicalization gate (VERDICT r3 top item): the graph the
-    engine's own pipeline route produces (compose, h-major state order)
-    must compile onto the fused blocked Pallas fast path with descriptors
-    IDENTICAL to the plane-major generator's — the pdf-grouped relabeling
-    in compile_fsm canonicalizes both host orders to one device layout.
-
-    (At V < 128 neither layout tiles into the kernel's 128-lane blocks and
-    both fall back — small graphs take the dense strategy anyway — so the
-    gate runs at the headline V=128 shape.)"""
+def test_composed_graph_reaches_fused_path():
+    """Canonicalization gate: the graph the engine's own pipeline route
+    produces (compose, h-major state order) must compile to an all-affine
+    blocked operator with descriptors IDENTICAL to the plane-major
+    generator's — the pdf-grouped relabeling in compile_fsm canonicalizes
+    both host orders to one device layout (gate at the headline V=128)."""
     from markovmodels_tpu import inference as inf
-    from markovmodels_tpu.ops import pallas_block as pb
 
-    monkeypatch.setenv("MMTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MMTPU_NO_PALLAS", raising=False)
     composed, spdf_c, P, _ = make_lm_hmm_graph_via_compose(V=128)
     cf_c = inf.compile_fsm(composed, spdf_c, P, strategy="block")
-    assert pb.block_scan_reject_reason(cf_c, 128) is None, (
-        pb.block_scan_reject_reason(cf_c, 128)
-    )
-    assert inf.fast_path_report(cf_c, 128).startswith("fused-pallas-block")
+    assert inf.fast_path_report(cf_c, 128).startswith(
+        "xla block scan (affine operator")
 
     direct, spdf, P2, _ = make_lm_hmm_graph(V=128)
     cf_d = inf.compile_fsm(direct, spdf, P2, strategy="block")
@@ -93,7 +84,7 @@ def test_composed_graph_reaches_fused_path(monkeypatch):
     assert cf_c.block_bwd_offsets == cf_d.block_bwd_offsets
     assert cf_c.pdf_group == cf_d.pdf_group
     # ...and the SAME canonical arrays (both host orders collapse to one
-    # device graph, so fused-path numerics are literally shared)
+    # device graph, so their numerics are literally shared)
     np.testing.assert_allclose(
         np.asarray(cf_c.alpha_hat), np.asarray(cf_d.alpha_hat), atol=1e-6
     )
@@ -109,11 +100,11 @@ def test_composed_graph_reaches_fused_path(monkeypatch):
         atol=1e-7,
     )
 
-    # without the canonicalization (reorder='none') the fallback REPORT
-    # names the rejected predicate (VERDICT r3 weak #1: visible cliffs)
+    # without the canonicalization (reorder='none') the report names the
+    # irregular access patterns the operator falls back to
     cf_raw = inf.compile_fsm(
         composed, spdf_c, P, strategy="block", reorder="none"
     )
     report = inf.fast_path_report(cf_raw, 128)
-    assert report.startswith("xla lax.scan fallback"), report
-    assert "pdf-grouped" in report, report
+    assert report.startswith("xla block scan (irregular operator"), report
+    assert "gather" in report, report
